@@ -157,7 +157,7 @@ def load_graph(ui: UserInput):
 def run(argv: List[str]) -> int:
     if len(argv) > 1 and argv[1] == "warmup":
         # pre-compile the standard shape grid into the persistent
-        # cache (cold-start mitigation; PERFORMANCE.md)
+        # cache (cold-start mitigation)
         from .warmup import run as warmup_run
 
         return warmup_run(argv)
@@ -185,7 +185,7 @@ def run(argv: List[str]) -> int:
 
     log.set_flags(ui.verbose, getattr(ui, "profile", False))
     if ui.max_mem or ui.threads:
-        # accepted for argv compatibility; the TPU pipeline plans
+        # accepted for argv compatibility; the device pipeline plans
         # static chunk/window sizes instead of a reactive memory
         # governor or a thread pool (SURVEY P7: reference
         # src/main.cpp:432-433)

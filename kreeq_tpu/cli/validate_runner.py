@@ -79,16 +79,6 @@ def main(argv: List[str] = None) -> None:
         print("kreeq-validate <path to test folder and/or files>")
         sys.exit(0)
 
-    # the corpus is tiny: per-test TPU compiles dominate, so the
-    # harness runs on CPU unless told otherwise
-    if not os.environ.get("KREEQ_TPU_PLATFORM"):
-        import jax
-
-        try:
-            jax.config.update("jax_platforms", "cpu")
-        except Exception:  # noqa: BLE001 (backend already initialized)
-            pass
-
     ok = True
     for tst in sorted(collect(argv)):
         try:

@@ -98,20 +98,15 @@ class DBG:
         `validate`: the reference always fills DBGbase tracks, but
         they feed only the QV totals unless a bed/csv/kwig/bkwig
         writer runs (src/kreeq-output.cpp:62-83) — skipping them drops
-        the query-order restore sort and the per-window track
-        readbacks.  Output (the QV table) is identical."""
+        the per-window track readbacks.  Output (the QV table) is
+        identical."""
         out = out or sys.stdout
         if not self.ui.in_sequence:
             return
         import jax.numpy as jnp
 
-        from ..ops.validate import (qv_window_sums, validate_positions,
-                                    validate_positions_pallas,
-                                    validate_qv_sums_pallas)
+        from ..ops.validate import qv_window_sums, validate_positions
 
-        from ..utils.pallas_gate import pallas_enabled
-
-        use_pallas = pallas_enabled()
         # out-of-core paging: when the table exceeds the device row cap
         # the probe loops HBM-resident key-range windows (reference
         # analog: map-range rescans, src/kreeq.cpp:59-76)
@@ -167,48 +162,18 @@ class DBG:
                 if need_tracks else None
             pending = []  # device QV sums; read back after dispatch
             for a, b, lead, buf in self._seq_windows(codes, kcount):
+                use_merge, starts, bits, rounds = probe_params(
+                    buf.shape[0])
+                (valid, missing, edge_missing, cov, isfw, right,
+                 left) = validate_positions(tkeys, tcov, tfw, tbw, starts,
+                                            jnp.asarray(buf), k,
+                                            self.ui.cov_cutoff, bits,
+                                            rounds, use_merge)
                 if not need_tracks:
-                    lead_d = jnp.uint32(lead)
-                    hi_d = jnp.uint32(lead + (b - a))
-                    if use_pallas and len(self.table):
-                        res = validate_qv_sums_pallas(
-                            tkeys, tcov, tfw, tbw, jnp.asarray(buf), k,
-                            self.ui.cov_cutoff, lead_d, hi_d)
-                    else:
-                        use_merge, starts, bits, rounds = probe_params(
-                            buf.shape[0])
-                        (valid, missing, edge_missing, *_rest) = \
-                            validate_positions(tkeys, tcov, tfw, tbw,
-                                               starts, jnp.asarray(buf),
-                                               k, self.ui.cov_cutoff,
-                                               bits, rounds, use_merge)
-                        res = qv_window_sums(missing, edge_missing,
-                                             lead_d, hi_d)
-                    pending.append((res, a, b, lead_d, hi_d))
+                    pending.append(qv_window_sums(
+                        missing, edge_missing, jnp.uint32(lead),
+                        jnp.uint32(lead + (b - a))))
                     continue
-                if use_pallas and len(self.table):
-                    # hint-path first (no blocking grid-depth readback
-                    # per window); depth_ok==0 (rare key skew) re-runs
-                    # the window with the true depth
-                    res = validate_positions_pallas(
-                        tkeys, tcov, tfw, tbw, jnp.asarray(buf), k,
-                        self.ui.cov_cutoff, sync=False,
-                        with_depth_ok=True)
-                    if int(res[7]) == 0:
-                        res = validate_positions_pallas(
-                            tkeys, tcov, tfw, tbw, jnp.asarray(buf),
-                            k, self.ui.cov_cutoff, sync=True,
-                            with_depth_ok=True)
-                    (valid, missing, edge_missing, cov, isfw, right,
-                     left) = res[:7]
-                else:
-                    use_merge, starts, bits, rounds = probe_params(
-                        buf.shape[0])
-                    (valid, missing, edge_missing, cov, isfw, right,
-                     left) = validate_positions(tkeys, tcov, tfw, tbw,
-                                                starts, jnp.asarray(buf),
-                                                k, self.ui.cov_cutoff,
-                                                bits, rounds, use_merge)
                 sl = slice(lead, lead + (b - a))
                 self.tot_missing += int(np.asarray(missing[sl]).sum())
                 self.tot_edge_missing += int(
@@ -217,15 +182,8 @@ class DBG:
                 track.isfw[a:b] = np.asarray(isfw[sl])
                 track.right[a:b] = np.asarray(right[sl])
                 track.left[a:b] = np.asarray(left[sl])
-            for res, wa, wb, lead_d, hi_d in pending:
+            for res in pending:
                 arr = np.asarray(res)
-                if arr[2] == 0:
-                    # grid-depth hint was too small for this window
-                    # (key skew): re-run with the true depth
-                    buf = self._window_buf(codes, wa, wb, kcount)
-                    arr = np.asarray(validate_qv_sums_pallas(
-                        tkeys, tcov, tfw, tbw, jnp.asarray(buf), k,
-                        self.ui.cov_cutoff, lead_d, hi_d, sync=True))
                 self.tot_missing += int(arr[0])
                 self.tot_edge_missing += int(arr[1])
             self.tot_kcount += kcount
@@ -271,8 +229,7 @@ class DBG:
         classifies from the accumulated selection."""
         import jax.numpy as jnp
 
-        from ..ops.pallas_kernels import _select_xla
-        from ..ops.validate import _classify_jit, _extract_ctx
+        from ..ops.validate import _extract_ctx, select_by_ctx
 
         k = self.k
         ranges = self.table.window_ranges()
@@ -300,7 +257,7 @@ class DBG:
                         jnp.asarray(buf), k)
                     probe = self.table._probe_one(
                         arrays, keys, lambda w=w: self.table.bucket_index(w))
-                    f, c, r, ll = _select_xla(*probe, ctx)
+                    f, c, r, ll = select_by_ctx(*probe, ctx)
                     sl = slice(lead, lead + (b - a))
                     f = np.asarray(f[sl])
                     hit = np.nonzero(f)[0]

@@ -1,7 +1,7 @@
 // Native runtime pieces: sequence ingest and DB archive parsing.
 //
 // The reference's ingest path is C++ (gfalibs StreamObj + kcount,
-// reference: src/input.cpp:188-308); this provides the TPU build's
+// reference: src/input.cpp:188-308); this provides the device build's
 // equivalent: FASTA/FASTQ (plain or gzip) -> 2-bit code arrays ready
 // for device packing, and phmap binary-archive parsing for `.kreeq`
 // databases.  Exposed with a plain C ABI for ctypes.

@@ -2,10 +2,9 @@
  *
  * The subgraph traversal (kreeq_tpu/core/subgraph.py) discovers ~1M
  * nodes per Mbp and must materialize {u64 key: SubNode} dicts in the
- * reference's insertion order (goldens pin GFA ids on it).  Measured
- * on this host, a Python-side dataclass + per-item dict insert costs
- * ~1.7 s per 1M nodes — the dominant share of the whole traversal
- * (PERFORMANCE.md round 4).  This module provides:
+ * reference's insertion order (goldens pin GFA ids on it).  A
+ * Python-side dataclass + per-item dict insert was the dominant share
+ * of the whole traversal on the host.  This module provides:
  *
  *   SubNode(fw=None, bw=None, cov=0, color=0)  — attribute-compatible
  *     with core.subgraph.SubNode (fw/bw are mutable 4-lists,

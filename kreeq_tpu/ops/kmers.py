@@ -1,6 +1,6 @@
 """Device kernels: canonical k-mer extraction, counting, probing.
 
-This is the TPU-native replacement for the reference's two hot loops:
+These replace the reference's two hot loops:
 per-base hashing into 128 hash-map partitions (reference:
 src/graph-builder.cpp:75-113, 160-205) and the per-base probe
 (reference: src/kreeq.cpp:143-219).
@@ -12,10 +12,10 @@ Architecture (idiomatic XLA, not a translation):
     shifted ORs (key = OR_i code[p+i] << 2i; canonical = min(fw, rc),
     isFw = fw <= rc — encoding validated against testFiles/test1.kreeq),
   * the "hash map" is a sorted array: counting = sort + run-detection +
-    MXU blocked prefix sums compacted by one flag-sort + row gather
+    blocked prefix sums compacted by one flag-sort + row gather
     (per-run totals by adjacent difference); probing = bucketed
     bisection (a per-table bucket index caps lookups at
-    log2(largest bucket) gather rounds).
+    log2(largest bucket) gather rounds) or a sort-merge join.
 
 All shapes are static.
 """
@@ -85,8 +85,7 @@ def kmer_positions(codes: jax.Array, k: int):
 
     # validity: no BAD code inside the window.  Sliding-window OR by
     # doubling (OR is idempotent, so the final overlapping combine is
-    # exact) — ~log2(k) elementwise passes instead of an integer
-    # cumsum, which lowers to a slow serial scan on TPU.
+    # exact) — ~log2(k) elementwise passes.
     y = codes > 3
     m = 1
     while m < k:
@@ -118,12 +117,11 @@ _PFX_BLOCK = 512
 def _prefix_sum01(m):
     """Exact inclusive prefix sum along axis 0 of 0/1 integer columns.
 
-    XLA's native integer cumsum lowers to a slow scan on TPU (u32 worse
-    than i32: 492 ms vs 171 ms at [8M,9] on v5e).  This blocks the scan
-    onto the MXU instead: within-block inclusive sums are one
-    lower-triangular f32 matmul (exact — block sums <= 512 < 2^24),
-    block offsets are a tiny i32 cumsum.  35 ms at [8M,9]: ~14x over
-    the native u32 cumsum.  Returns int32.
+    Blocked: within-block inclusive sums are one lower-triangular f32
+    matmul, block offsets are a small i32 cumsum.  The matmul is exact
+    only at full f32 precision (block sums <= 512 < 2^24), so it pins
+    HIGHEST: the default GPU precision rounds operands to TF32.
+    Returns int32.
     """
     B = _PFX_BLOCK
     n0, c = m.shape
@@ -133,6 +131,7 @@ def _prefix_sum01(m):
     x = mp.reshape(nb, B, c).astype(jnp.float32)
     tri = jnp.tril(jnp.ones((B, B), jnp.float32))
     within = jnp.einsum("ij,bjc->bic", tri, x,
+                        precision=jax.lax.Precision.HIGHEST,
                         preferred_element_type=jnp.float32)
     bsums = mp.reshape(nb, B, c).astype(jnp.int32).sum(axis=1)
     offs = jnp.cumsum(bsums, axis=0) - bsums  # exclusive block offsets
@@ -143,10 +142,8 @@ def _prefix_sum01(m):
 def _compact_order(flag):
     """Permutation putting flagged positions first, in position order.
 
-    Row scatters serialize on TPU (a [8M,11] u32 row scatter costs
-    ~1.0 s on v5e); compacting with one single-operand u32 sort plus
-    row gathers costs ~0.47 s for the same job.  Position rides in the
-    low 31 bits of the sort key, so ties cannot reorder.
+    One single-operand u32 sort in place of a row scatter.  Position
+    rides in the low 31 bits of the sort key, so ties cannot reorder.
     """
     p = flag.shape[0]
     iota = jnp.arange(p, dtype=jnp.uint32)
@@ -158,11 +155,10 @@ def _compact_order(flag):
 def _sort_keys_edges(skeys, e32):
     """Sort (key, 8 edge bits) records: u32/u64 2-key representation.
 
-    XLA's variadic sort with a u64 key operand is slow on TPU (8M:
-    (u64, u32) 1-key = 405 ms); re-expressing the same order as a
-    2-key sort of (u32 hi24, u64 lo38|edges8) runs in 42 ms.  Ties on
-    the key sort by edge bits, which is harmless: run totals are
-    order-independent within a run.  Valid for every k <= 32.
+    The order is expressed as a 2-key sort of (u32 hi24,
+    u64 lo38|edges8).  Ties on the key sort by edge bits, which is
+    harmless: run totals are order-independent within a run.  Valid
+    for every k <= 32.
     """
     hi = (skeys >> jnp.uint64(38)).astype(jnp.uint32)
     lo = ((skeys & jnp.uint64((1 << 38) - 1)) << jnp.uint64(8)) | e32
@@ -181,16 +177,12 @@ def count_sorted(keys: jax.Array, edges: jax.Array, valid: jax.Array):
     sums.  Returns padded arrays (ukeys u64[P] sorted with SENTINEL
     padding, cov u32[P], fw u32[P,4], bw u32[P,4]) plus n (u32 scalar).
 
-    Scatter/gather rounds dominate on TPU, so all 9 run sums plus both
-    key halves ride ONE permutation: inclusive cumulative rows (MXU
-    blocked prefix sum, `_prefix_sum01`) are compacted to the front at
-    run ends by a single u32 sort + row gather (`_compact_order` — row
-    scatters serialize on TPU), and per-run totals are adjacent
+    All 9 run sums plus both key halves ride ONE permutation:
+    inclusive cumulative rows (blocked prefix sum, `_prefix_sum01`) are
+    compacted to the front at run ends by a single u32 sort + row
+    gather (`_compact_order`), and per-run totals are adjacent
     differences of the compacted rows.  The permutation payload is
-    padded to 16 columns and gathered with unique_indices=True: on v5e
-    a [8M,16] unique-index row gather costs 201 ms vs 662 ms for the
-    naive [8M,11] (see scripts/bench_count_variants.py).  Full step:
-    307 ms at 8M vs 1161 ms for the round-1 shape (same run).
+    padded to 16 columns and gathered with unique_indices=True.
     """
     p = keys.shape[0]
     skeys = jnp.where(valid, keys, SENTINEL)
@@ -237,42 +229,6 @@ def count_sorted(keys: jax.Array, edges: jax.Array, valid: jax.Array):
     return ukeys, cov, fw, bw, n
 
 
-
-def get_count_sorted():
-    """Select the run-aggregation implementation.
-
-    KREEQ_TPU_PALLAS=1 (or =auto with a passing on-device self-check;
-    utils/pallas_gate.py) selects the streaming Pallas kernel
-    (ops/pallas_kernels.py); the XLA path is the default
-    (KNOWN_GAPS.md "Pallas on this environment").
-    """
-    import os
-
-    from ..utils.pallas_gate import pallas_enabled
-
-    if pallas_enabled():
-        # split-count rides the same gate: it reduces with the Pallas
-        # merge kernel, so it must never run where Pallas cannot
-        split = int(os.environ.get("KREEQ_TPU_COUNT_SPLIT", "0"))
-        if split > 1:
-            from .pallas_kernels import count_sorted_split
-
-            def split_fn(keys, edges, valid):
-                return count_sorted_split(keys, edges, valid, split)
-
-            return split_fn
-        from .pallas_kernels import count_sorted_pallas
-
-        def guarded(keys, edges, valid):
-            # the kernel's f32 prefix sums are exact only below 2^24
-            # records per chunk
-            if keys.shape[0] >= (1 << 24):
-                return count_sorted(keys, edges, valid)
-            return count_sorted_pallas(keys, edges, valid)
-
-        return guarded
-    return count_sorted
-
 @jax.jit
 def merge_sorted(keys_a, cov_a, fw_a, bw_a, keys_b, cov_b, fw_b, bw_b):
     """Merge two sorted unique tables with saturating u32 adds.
@@ -281,11 +237,8 @@ def merge_sorted(keys_a, cov_a, fw_a, bw_a, keys_b, cov_b, fw_b, bw_b):
     (reference: src/graph-builder.cpp:297-432); saturation bound LARGEST
     per reference include/kreeq.h:68.
 
-    Payloads ride the sorts as packed u64 operands — the round-2
-    version fetched them with two [p,16] row gathers, which are
-    latency-bound at ~40 M rows/s regardless of width (the dominant
-    524 ms of an 8M+8M merge); extra sort operands cost far less.
-    Equal keys across inputs land adjacent in either order (the
+    Payloads ride the sorts as packed u64 operands instead of being
+    fetched by row gathers afterwards.  Equal keys across inputs land adjacent in either order (the
     saturating add is commutative, so no passenger index is needed).
     """
     keys = jnp.concatenate([keys_a, keys_b])
@@ -368,22 +321,6 @@ def merge_sorted(keys_a, cov_a, fw_a, bw_a, keys_b, cov_b, fw_b, bw_b):
     return okeys, ocov, ofw, obw, n
 
 
-def get_merge_sorted():
-    """Select the sorted-merge implementation.
-
-    KREEQ_TPU_PALLAS=1/auto selects the streaming Pallas merge kernel
-    (ops/pallas_kernels.merge_sorted_pallas) — one sequential pass
-    instead of a (na+nb)-element sort plus a compaction flag-sort.
-    Host-level only (it reads back the max chunk span per tile)."""
-    from ..utils.pallas_gate import pallas_enabled
-
-    if pallas_enabled():
-        from .pallas_kernels import merge_sorted_pallas
-
-        return merge_sorted_pallas
-    return merge_sorted
-
-
 @jax.jit
 def probe_merge(tkeys, cov, fw, bw, qkeys):
     """Batched lookup as a gather-free sort-merge join.
@@ -393,11 +330,9 @@ def probe_merge(tkeys, cov, fw, bw, qkeys):
     restores query order with ONE single-operand u64 sort and fetches
     payloads with one wide unique-order row gather.  Both sorts use the
     fast representations (2-key u32/u64 with tag+index packed into the
-    low bits; see _sort_keys_edges): 219 ms for 4M queries against an
-    8M-key table on v5e vs 533 ms for the bucketed bisection.  Cost
-    scales with t + q, so KmerTable.probe selects this join only when
-    the table is not much larger than the batch.  Output matches
-    probe_sorted.
+    low bits; see _sort_keys_edges).  Cost scales with t + q, so
+    KmerTable.probe selects this join only when the table is not much
+    larger than the batch.  Output matches probe_sorted.
     """
     t = tkeys.shape[0]
     q = qkeys.shape[0]
@@ -500,9 +435,7 @@ def probe_bucketed(tkeys, cov, fw, bw, starts, qkeys, k: int, bits: int,
     the table side computes it exactly.  Output matches probe_sorted.
 
     The result row (key halves + cov + fw + bw) is fetched as ONE
-    [T,11] contiguous row gather — the final key check rides along, and
-    one 44-byte row gather beats four separate gathers (168 ms vs
-    247 ms + key check at 4M queries on v5e).
+    [T,11] contiguous row gather — the final key check rides along.
     """
     shift = jnp.uint64(2 * k - bits)
     b = (qkeys >> shift).astype(jnp.int32)

@@ -3,10 +3,11 @@
 The reference scales across machines by building one .kreeq DB per job
 and merging them serially with `kreeq union` through the filesystem
 (reference: README.md:31-39, src/graph-builder.cpp:297-351).  The
-TPU-native replacement runs ONE SPMD program over a global device mesh
+replacement here runs ONE SPMD program over a global device mesh
 spanning all hosts (`jax.distributed`): every host streams its shard of
 the read files, records route to their owner device with all_to_all
-(ICI within a host's slice, DCN across hosts), and each device keeps
+(device links within a host, the network across hosts), and each
+device keeps
 the sub-table for keys it owns (mixed-hash ownership, sharded.owner_of).
 Shards are disjoint, so the cross-host "union" needs no data movement
 at all — it happens implicitly during routing.
@@ -38,9 +39,9 @@ def maybe_initialize() -> bool:
     """Initialize jax.distributed from KREEQ_TPU_* env vars if set.
 
     Returns True when running multi-process.  Call before any backend
-    use (the CLI does this at startup).  On TPU pods with standard
-    launchers, plain `jax.distributed.initialize()` also works; the env
-    vars cover CPU testing and manual launches.
+    use (the CLI does this at startup).  The env vars give
+    `jax.distributed.initialize()` its coordinator, process count and
+    process id explicitly.
     """
     import jax
 
@@ -124,7 +125,7 @@ def build_table_distributed(read_files, k: int,
     def merge(a, b):
         a = _pad_part(a, _pow2(a[0].shape[0]))
         b = _pad_part(b, _pow2(b[0].shape[0]))
-        mkeys, mcov, mfw, mbw, nm = K.get_merge_sorted()(*a, *b)
+        mkeys, mcov, mfw, mbw, nm = K.merge_sorted(*a, *b)
         nm = int(nm)
         return (mkeys[:nm], mcov[:nm], mfw[:nm], mbw[:nm])
 

@@ -1,6 +1,6 @@
 """Multi-device sharded counting and probing (SPMD over a Mesh).
 
-TPU-native re-expression of the reference's scaling story:
+Device-mesh re-expression of the reference's scaling story:
 
   * the reference shards its table 128 ways by `key % mapCount` inside
     one process (reference: include/kreeq.h:139-148) and scales across
@@ -9,7 +9,7 @@ TPU-native re-expression of the reference's scaling story:
     src/graph-builder.cpp:297-351);
   * here the table is sharded `key % n_devices` across a device mesh:
     every device extracts k-mers from its local read chunk, records are
-    routed to their owner shard with all_to_all over ICI, and each
+    routed to their owner shard with all_to_all, and each
     owner builds its sorted sub-table locally.  Probes route the same
     way and return by the inverse exchange; QV totals reduce with psum.
 
@@ -251,8 +251,7 @@ def sharded_probe_fn(mesh: Mesh, k: int, bits: int, cutoff: int = 0,
         nc = (nxt & 3).astype(jnp.int32)
         pc = (prv & 3).astype(jnp.int32)
 
-        # one-hot select+reduce: take_along_axis lowers to a per-row
-        # HBM gather on TPU, these stay on the VPU
+        # column selection by one-hot select+reduce over the 4 lanes
         lanes = jnp.arange(4, dtype=jnp.int32)[None, :]
 
         def pick(mat, idx):
@@ -269,8 +268,8 @@ def sharded_probe_fn(mesh: Mesh, k: int, bits: int, cutoff: int = 0,
         no_left = has_prev & (jnp.where(qfound & has_prev, left, 0) == 0)
         edge_missing = valid & ~missing & no_left & no_right
 
-        # int32 psum: per-step counts are < 2^31 and the TPU compiler
-        # does not lower 64-bit all-reduces; accumulate on the host
+        # int32 psum: per-step counts are < 2^31; accumulate on the
+        # host
         tot = jax.lax.psum(jnp.sum(valid.astype(jnp.int32)), AXIS)
         miss = jax.lax.psum(jnp.sum(missing.astype(jnp.int32)), AXIS)
         emiss = jax.lax.psum(jnp.sum(edge_missing.astype(jnp.int32)),
@@ -313,7 +312,7 @@ def full_pipeline_fn(mesh: Mesh, k: int, table_rows: int | None = None):
 def sharded_merge_fn(mesh: Mesh):
     """Build the jitted SPMD union-merge step.
 
-    TPU-native `kreeq union` at scale (reference workload:
+    Device-mesh `kreeq union` at scale (reference workload:
     src/graph-builder.cpp:297-432, submap-parallel mergeMaps): the two
     input tables are key-range partitioned on the host (both are
     sorted, so a shard's slice pair is contiguous), each device merges

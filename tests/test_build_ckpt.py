@@ -2,7 +2,7 @@
 
 The reference build is restartable only at whole-DB granularity (the
 `.kreeq` DB is the checkpoint; a death mid-build restarts from zero —
-reference: src/graph-builder.cpp:134-216, README.md:24-29).  The TPU
+reference: src/graph-builder.cpp:134-216, README.md:24-29).  This
 build adds chunk-batch resume: parts + merge manifest on disk.  These
 tests pin (a) bitwise equality with the plain build, (b) resume after
 an injected crash at every stage without redoing completed batches,

@@ -232,7 +232,7 @@ def test_warmup_mode(capsys):
 
 
 def test_verbose_heartbeat_bounded(monkeypatch, capsys):
-    """The verbose heartbeat (soak-watchdog liveness during silent XLA
+    """The verbose heartbeat (watchdog liveness during silent XLA
     compiles) emits while idle, stands down after the max-silent bound
     so a genuine wedge still trips log-growth watchdogs, and re-arms on
     the next real message."""

@@ -18,6 +18,8 @@ import pytest
 from kreeq_tpu.io.kreeqdb import (SLOT_U32, SLOT_U8, phmap_mix,
                                   phmap_subidx, read_kreeq, write_kreeq)
 
+from .conftest import reference_available
+
 REFERENCE = os.environ.get("KREEQ_REFERENCE", "/root/reference")
 
 
@@ -84,6 +86,7 @@ def check_archive(path: str, slot_size: int) -> int:
     return checked
 
 
+@pytest.mark.skipif(not reference_available(), reason="no reference corpus")
 def test_simulator_against_reference_dumps():
     """Ground truth: the reference's own DBs load in its binary, so the
     simulator must locate every key in them."""
@@ -96,6 +99,7 @@ def test_simulator_against_reference_dumps():
     assert total > 100
 
 
+@pytest.mark.skipif(not reference_available(), reason="no reference corpus")
 def test_written_db_is_probe_consistent(tmp_path):
     db = read_kreeq(os.path.join(REFERENCE, "testFiles", "test1.kreeq"))
     out = tmp_path / "w.kreeq"

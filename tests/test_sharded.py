@@ -212,7 +212,7 @@ def test_sharded_union_merge_matches_single_device(mesh):
 
 @pytest.mark.slow
 def test_sharded_probe_scale_fast_path(mesh):
-    """VERDICT r3 item 9: ~8M keys/device on the virtual 8-device mesh.
+    """~8M keys/device on the virtual 8-device mesh.
 
     Asserts the capacity-factor fast path holds (zero dropped records
     in count AND probe — no full-bin retry needed) and that the routed

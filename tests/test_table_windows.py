@@ -2,7 +2,7 @@
 
 The reference runs any DB size on bounded RAM by paging map-range
 windows and rescanning (reference: src/kreeq.cpp:59-76,
-src/graph-builder.cpp:213-216).  The TPU analog partitions the sorted
+src/graph-builder.cpp:213-216).  The device analog partitions the sorted
 table by key range; one window is device-resident at a time, queries
 are probed per window, and results combine across windows.  Forced
 tiny caps must be observably identical to the unwindowed path.
